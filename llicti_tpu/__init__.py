@@ -1,7 +1,7 @@
-"""LLICTI-TPU: a TPU-native learned lossless image compression framework.
+"""LLICTI: learned lossless image compression in JAX.
 
-Re-designed from scratch for JAX/XLA/Pallas on TPU, with the capability
-surface of the reference LLICTI codebase (scale-based auto-regressive
+Re-designed from scratch for JAX/XLA/Pallas on an accelerator, with the
+capability surface of the reference LLICTI codebase (scale-based auto-regressive
 lossless codec: lazy wavelet pyramid + CNN interpolators + GMM entropy
 model + arithmetic coding).
 """

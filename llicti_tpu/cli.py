@@ -1,19 +1,22 @@
-"""File-level codec CLI: encode a PNG/JPEG to a .llic bitstream and back.
+"""File-level codec CLI: encode an image to a .llic bitstream and back.
 
 Usage:
   python -m llicti_tpu.cli encode IMAGE OUT.llic [--ckpt DIR] [--config J]
   python -m llicti_tpu.cli decode IN.llic OUT.png [--ckpt DIR] [--config J]
 
+IMAGE/OUT may be PNG/JPEG (needs Pillow) or a .npy uint8 [H, W, 3] array.
+
 The bitstream is the serialized stream-group list (Codec.serialize).  The
-model params come from an Orbax checkpoint dir (``--ckpt``, file name
+model params come from a checkpoint dir (``--ckpt``, file name
 "bench"/"model_best"/...; default: random init — still lossless, just a
-poor rate).  A practical front-end the reference lacks (its eval_model
-mode only round-trips in memory, agents/llicti_agent.py:122-164).
+poor rate).  Encoder and decoder must agree on ``--lanes`` and run on the
+same kind of device.  A practical front-end the reference lacks (its
+eval_model mode only round-trips in memory,
+agents/llicti_agent.py:122-164).
 """
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
@@ -22,10 +25,9 @@ def _load_codec(args):
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/llicti_jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
@@ -43,7 +45,8 @@ def _load_codec(args):
 
         params, _meta = CheckpointManager(args.ckpt).load(args.ckpt_name,
                                                           params)
-    return Codec(cfg, params, num_lanes=args.lanes)
+    lanes = {} if args.lanes is None else {"num_lanes": args.lanes}
+    return Codec(cfg, params, **lanes)
 
 
 def main(argv=None) -> int:
@@ -51,14 +54,13 @@ def main(argv=None) -> int:
     ap.add_argument("cmd", choices=["encode", "decode"])
     ap.add_argument("inp")
     ap.add_argument("out")
-    ap.add_argument("--ckpt", default=None, help="Orbax checkpoint dir")
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir")
     ap.add_argument("--ckpt-name", default="bench")
     ap.add_argument("--config", default=None, help="JSON config path")
     ap.add_argument("--platform", default=None)
-    ap.add_argument("--lanes", type=int, default=512)
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="rANS lanes (default: the Codec's)")
     args = ap.parse_args(argv)
-
-    import numpy as np
 
     from .codec import Codec
 
@@ -81,14 +83,10 @@ def main(argv=None) -> int:
             blob = f.read()
         t0 = time.time()
         out = codec.decompress(Codec.deserialize(blob))
-        try:
-            from PIL import Image
+        from .data.dataset import save_rgb
 
-            Image.fromarray(out[0]).save(args.out)
-            written = args.out
-        except ImportError:
-            written = args.out + ".npy"
-            np.save(written, out[0])
+        save_rgb(args.out, out[0])
+        written = args.out
         print(f"{args.inp}: -> {out.shape[1]}x{out.shape[2]} "
               f"written to {written} in {time.time()-t0:.2f}s",
               file=sys.stderr)

@@ -3,7 +3,7 @@
 The build is automatic-on-import (cached .so under this package dir).
 API mirrors what the codec needs:
 
-  encode_lohi(lo_u16, hi_u16) -> bytes           # TPU-gathered 2 vals/pixel
+  encode_lohi(lo_u16, hi_u16) -> bytes           # device-gathered 2 vals/pixel
   encode_cdf(cdf_u16[N, Lp], syms_i16) -> bytes  # torchac-style
   decode_cdf(cdf_u16[N, Lp], data) -> syms_i16
 

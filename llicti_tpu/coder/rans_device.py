@@ -2,8 +2,8 @@
 
 Why this exists: the reference (and our host backend) ships per-pixel CDF
 tables to the CPU coder — ~0.5-1 KB/pixel of PCIe traffic on decode
-(reference LLICTI_nets.py:485-493).  On TPU we instead keep the CDF
-tables in HBM and run the range coder *on the device* as vectorized
+(reference LLICTI_nets.py:485-493).  We instead keep the CDF
+tables in device memory and run the range coder *on the device* as vectorized
 integer ops: N independent rANS lanes decode one symbol each per scan
 step, so only the actual bitstream (~entropy-sized) ever crosses the
 host link.  Integer arithmetic also makes encoder/decoder bit-exactness
@@ -235,14 +235,15 @@ def rans_decode_body_batch(cum, words, states, offsets, num_lanes, n):
     streams; states: [K, N] uint32; offsets: [K] int32 read positions.
     Returns (symbols [K, n] int32, states, new offsets).
 
-    Gather-free formulation: XLA:TPU gathers are slow (often lowered to
-    serial loops / one-hot matmuls), so instead of a per-lane binary
-    search each scan step loads its *contiguous* [K, N, Lp] row block
-    with ``dynamic_slice`` (scalar step index, shared by all images) and
-    finds (s, cum[s], cum[s+1]) with masked max/min/sum reductions over
-    Lp — pure VPU work.  The conditional word refill reads one
-    contiguous [N] window per image (K unrolled scalar-offset slices)
-    and selects by rank with a one-hot compare instead of a gather.
+    Gather-free formulation (written for a backend with slow gathers;
+    whether a per-lane binary search is faster on the GPU is an open
+    measurement): each scan step loads its *contiguous* [K, N, Lp] row
+    block with ``dynamic_slice`` (scalar step index, shared by all
+    images) and finds (s, cum[s], cum[s+1]) with masked max/min/sum
+    reductions over Lp — elementwise work.  The conditional word refill
+    reads one contiguous [N] window per image (K unrolled scalar-offset
+    slices) and selects by rank with a one-hot compare instead of a
+    gather.
     """
     N = num_lanes
     K, _, Lp = cum.shape

@@ -1,6 +1,6 @@
 // Arithmetic (range) coder over per-symbol quantized CDFs.
 //
-// TPU-native replacement for the torchac C++ extension used by the
+// Replacement for the torchac C++ extension used by the
 // reference (graphs/models/LLICTI_nets.py:400-407, 485-493).  The CDF
 // contract matches torchac's int16-normalized format (LLICTI_nets.py:955-983):
 // a CDF row of Lp uint16 entries, strictly increasing modulo 2^16, with
@@ -8,7 +8,7 @@
 //
 // Two encode entry points:
 //  * rc_encode_lohi: takes precomputed per-symbol (cdf[s], cdf[s+1]) pairs —
-//    the TPU gathers just these 2 values per pixel, slashing host transfer
+//    the device gathers just these 2 values per pixel, slashing host transfer
 //    ~250x vs shipping full CDF tables (our key encode-path optimization).
 //  * rc_encode_cdf:  takes full per-pixel CDF rows (torchac-style).
 // Decode requires full rows (binary search per symbol): rc_decode_cdf.

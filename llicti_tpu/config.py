@@ -1,4 +1,4 @@
-"""Configuration for the LLICTI-TPU framework.
+"""Configuration for the LLICTI framework.
 
 A frozen dataclass mirroring the reference's JSON knob surface
 (reference: configs/llicti_A.json:1-61, utils/config.py:50-117) so that

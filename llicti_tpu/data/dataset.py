@@ -23,14 +23,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-try:  # PIL is available in the image; degrade gracefully without it
-    from PIL import Image
-
-    _HAS_PIL = True
-except Exception:  # pragma: no cover
-    _HAS_PIL = False
-
-_EXTS = (".png", ".jpg", ".jpeg")
+_EXTS = (".png", ".jpg", ".jpeg", ".npy")
 
 
 def list_images(roots: Sequence[str]) -> List[str]:
@@ -44,11 +37,36 @@ def list_images(roots: Sequence[str]) -> List[str]:
     return files
 
 
+def _pil_image():
+    """PIL's Image module, imported only where real image files are read
+    or written (the synthetic-data and .npy paths never need it)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing PNG/JPEG files needs Pillow (pip install "
+            "pillow); .npy images and synthetic data work without it"
+        ) from e
+    return Image
+
+
 def load_rgb(path: str) -> np.ndarray:
-    assert _HAS_PIL, "PIL unavailable"
+    """[H, W, 3] uint8 RGB from an image file, or from a .npy array."""
+    if path.endswith(".npy"):
+        img = np.load(path)
+        assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[-1] == 3
+        return img
     with open(path, "rb") as f:
-        img = Image.open(f)
+        img = _pil_image().open(f)
         return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
+def save_rgb(path: str, img: np.ndarray) -> None:
+    """Write [H, W, 3] uint8 RGB as an image file, or as .npy."""
+    if path.endswith(".npy"):
+        np.save(path, img)
+    else:
+        _pil_image().fromarray(img).save(path)
 
 
 def synthetic_image(h: int, w: int, seed: int) -> np.ndarray:
@@ -131,8 +149,8 @@ class ImageDataset:
     """Random-access dataset of [H, W, 3] uint8 images.
 
     Decoded images are cached in RAM by default (the corpus is tens of
-    images; PNG decode on the 2-vCPU host would otherwise bottleneck the
-    TPU train step).
+    images; PNG decode on a small host would otherwise bottleneck the
+    train step).
     """
 
     def __init__(

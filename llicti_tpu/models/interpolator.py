@@ -1,26 +1,26 @@
 """Interpolator network: conditional-GMM parameter CNN for one (scale, band).
 
-TPU-native re-design of the reference's ``LLICTIEntropyModel4``
+Re-design of the reference's ``LLICTIEntropyModel4``
 (graphs/models/LLICTI_nets.py:585-952):
 
-* NHWC layout, Flax modules, XLA grouped convs (feature_group_count).
+* NHWC layout, plain JAX (``models/module.py``), XLA grouped convs
+  (feature_group_count).
 * Layer 0 is band-geometry specific: small Ev/Od kernels with asymmetric
   replicate padding aligning receptive fields with polyphase sample
   positions (reference :650-682).
-* Layers 1..L-1 are grouped 1x1 convs (batched matmuls on the MXU).
+* Layers 1..L-1 are grouped 1x1 convs (batched matmuls).
 * Output: GMM parameters; channel layouts per clr_joint_mode documented in
   :meth:`self_informations` (reference :827-935).
 
 Weight init matches torch Conv2d defaults (kaiming-uniform a=sqrt(5), i.e.
 U(+-1/sqrt(fan_in)) for both kernel and bias) so training dynamics are
-comparable.
+comparable.  The parameter tree keeps the layout of the Flax modules the
+trained checkpoints were written with: ``conv_*``/``seq_to*``/``trunk_i``
+convs hold ``{"Conv_0": {"kernel", "bias"}}``, PReLU/GDN1 activations
+hold ``{"PReLU_0": {"alpha"}}``/``{"GDN1_0": {"beta", "gamma"}}``.
 """
 from __future__ import annotations
 
-import math
-from typing import Optional, Tuple
-
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax import lax
@@ -28,19 +28,7 @@ from jax import lax
 from ..config import ModelConfig
 from ..ops.gdn import GDN1
 from ..ops.gmm import gmm_self_information
-
-_torch_kernel_init = jax.nn.initializers.variance_scaling(
-    1.0 / 3.0, "fan_in", "uniform"
-)
-
-
-def _torch_bias_init(fan_in: int):
-    bound = 1.0 / math.sqrt(fan_in)
-
-    def init(rng, shape, dtype=jnp.float32):
-        return jax.random.uniform(rng, shape, dtype, -bound, bound)
-
-    return init
+from .module import conv, conv_init
 
 
 def _pad_edge(x, pad_lrtb):
@@ -56,53 +44,32 @@ def _box_mean(x_padded, kh: int, kw: int) -> jnp.ndarray:
     return s / (kh * kw)
 
 
-class _Conv(nn.Module):
-    """VALID conv with torch-default init; kernel (kh, kw), NHWC."""
+class _Activation:
+    """ReLU / LeakyReLU / per-channel PReLU (torch nn.PReLU(C), init
+    0.25) / GDN1 / identity."""
 
-    features: int
-    kernel: Tuple[int, int]
-    groups: int = 1
-    in_features: int = 0  # for bias fan_in
+    def __init__(self, kind: str, channels: int, precision=None):
+        self.kind = kind
+        self.channels = channels
+        self.gdn = GDN1(channels, precision=precision)
 
-    @nn.compact
-    def __call__(self, x):
-        fan_in = (self.in_features // self.groups) * self.kernel[0] * self.kernel[1]
-        return nn.Conv(
-            features=self.features,
-            kernel_size=self.kernel,
-            padding="VALID",
-            feature_group_count=self.groups,
-            kernel_init=_torch_kernel_init,
-            bias_init=_torch_bias_init(fan_in),
-        )(x)
-
-
-class PReLU(nn.Module):
-    """Per-channel PReLU (torch nn.PReLU(num_parameters=C) equivalent)."""
-
-    channels: int
-    init: float = 0.25
-
-    @nn.compact
-    def __call__(self, x):
-        a = self.param("alpha", lambda rng: jnp.full((self.channels,), self.init))
-        return jnp.where(x >= 0, x, a * x)
-
-
-class _Activation(nn.Module):
-    kind: str
-    channels: int
-
-    @nn.compact
-    def __call__(self, x):
-        if self.kind == "ReLU":
-            return nn.relu(x)
-        if self.kind == "LeakyReLU":
-            return nn.leaky_relu(x)  # default negative_slope 0.01, as torch
+    def init(self):
+        """Parameters (constants: no key needed), None if parameter-free."""
         if self.kind == "PReLU":
-            return PReLU(channels=self.channels)(x)
+            return {"PReLU_0": {"alpha": jnp.full((self.channels,), 0.25)}}
         if self.kind == "GDN1":
-            return GDN1(channels=self.channels)(x)
+            return {"GDN1_0": self.gdn.init()["params"]}
+        return None
+
+    def __call__(self, p, x):
+        if self.kind == "ReLU":
+            return jax.nn.relu(x)
+        if self.kind == "LeakyReLU":
+            return jax.nn.leaky_relu(x, 0.01)  # torch default slope
+        if self.kind == "PReLU":
+            return jnp.where(x >= 0, x, p["PReLU_0"]["alpha"] * x)
+        if self.kind == "GDN1":
+            return self.gdn.apply({"params": p["GDN1_0"]}, x)
         return x
 
 
@@ -140,69 +107,111 @@ def interpolator_dims(cfg: ModelConfig, scale: int):
     return grps, Ch, Co, c, grp0
 
 
-class Interpolator(nn.Module):
+class Interpolator:
     """One conditional-GMM parameter network for a (scale, band).
 
     band in {0, 1, 2} or -1 (combine_layers1toL: one net serves all bands,
     dispatched on the conditioning channel count — reference :308-314).
+    Methods take the network's parameter subtree ``p`` first.
+
+    ``dense_groups`` (codec path) initializes the grouped convs as dense
+    convs; the Codec instead expands trained grouped kernels to
+    block-diagonal dense ones (``codec.dense_group_params``), whose
+    zero blocks contribute exact 0.0 terms.  ``precision`` is the
+    conv/matmul precision (None = XLA's default).
     """
 
-    cfg: ModelConfig
-    scale: int
-    band: int
-    # Codec-path execution mode: run grouped convs as DENSE convs with
-    # block-diagonal kernels (the Codec expands the trained grouped
-    # kernels; zero-blocks contribute exact 0.0 terms).  Same math, but
-    # the MXU gets full 128-lane contractions instead of 88-channel
-    # groups (measured faster in the fused codec program).  Training
-    # keeps feature_group_count (identical numerics to the reference).
-    dense_groups: bool = False
-
-    def setup(self):
-        cfg = self.cfg
-        grps, Ch, Co, c, grp0 = interpolator_dims(cfg, self.scale)
+    def __init__(self, cfg: ModelConfig, scale: int, band: int,
+                 dense_groups: bool = False, precision=None):
+        self.cfg, self.scale, self.band = cfg, scale, band
+        self.dense_groups = dense_groups
+        self.precision = precision
+        grps, Ch, Co, c, grp0 = interpolator_dims(cfg, scale)
         self.grps, self.Ch, self.Co, self.c, self.grp0 = grps, Ch, Co, c, grp0
-        if self.dense_groups:
-            grps = grp0 = 1
-        Ev = cfg.evens[self.scale]
-        Od = cfg.odds[self.scale]
-        band = self.band
-        # layer-0 pad tuples are (left, right, top, bottom), reference :650-682
+        Ev = cfg.evens[scale]
+        Od = cfg.odds[scale]
+        # layer-0 convs: name -> (kernel hw, pad (left, right, top, bottom),
+        # conditioning unit), reference :650-682
+        convs = {}
         if band in (0, -1):
-            self.conv_00_11 = _Conv(Ch, (Ev, Ev), grp0, c)
-            self.pad_00_11 = (Ev // 2 - 1, Ev // 2, Ev // 2 - 1, Ev // 2)
+            convs["conv_00_11"] = ((Ev, Ev), (Ev // 2 - 1, Ev // 2,
+                                              Ev // 2 - 1, Ev // 2), 0)
         if band in (1, -1):
-            self.conv_00_01 = _Conv(Ch, (Od, Ev), grp0, c)
-            self.pad_00_01 = (Ev // 2 - 1, Ev // 2, Od // 2, Od // 2)
-            self.conv_11_01 = _Conv(Ch, (Ev, Od), grp0, c)
-            self.pad_11_01 = (Od // 2, Od // 2, Ev // 2, Ev // 2 - 1)
+            convs["conv_00_01"] = ((Od, Ev), (Ev // 2 - 1, Ev // 2,
+                                              Od // 2, Od // 2), 0)
+            convs["conv_11_01"] = ((Ev, Od), (Od // 2, Od // 2,
+                                              Ev // 2, Ev // 2 - 1), 1)
         if band in (2, -1):
-            self.conv_00_10 = _Conv(Ch, (Ev, Od), grp0, c)
-            self.pad_00_10 = (Od // 2, Od // 2, Ev // 2 - 1, Ev // 2)
-            self.conv_11_10 = _Conv(Ch, (Od, Ev), grp0, c)
-            self.pad_11_10 = (Ev // 2, Ev // 2 - 1, Od // 2, Od // 2)
-            self.conv_01_10 = _Conv(Ch, (Ev, Ev), grp0, c)
-            self.pad_01_10 = (Ev // 2, Ev // 2 - 1, Ev // 2 - 1, Ev // 2)
-        if cfg.clrchs == 3 and cfg.clr_joint_mode == 0 and cfg.clrjnt0seqmd:
-            # sequential-color conditioning on the *current* pixel's earlier
-            # colors (reference :655-657, 666-668, 680-682)
-            self.seq_toCo = _Conv(Ch // 3, (1, 1), 1, 1)
-            self.seq_toCg = _Conv(Ch // 3, (1, 1), 1, 1)
-        self.act0 = _Activation(cfg.activfun, Ch)
+            convs["conv_00_10"] = ((Ev, Od), (Od // 2, Od // 2,
+                                              Ev // 2 - 1, Ev // 2), 0)
+            convs["conv_11_10"] = ((Od, Ev), (Ev // 2, Ev // 2 - 1,
+                                              Od // 2, Od // 2), 1)
+            convs["conv_01_10"] = ((Ev, Ev), (Ev // 2, Ev // 2 - 1,
+                                              Ev // 2 - 1, Ev // 2), 2)
+        self.layer0 = convs
+        # sequential-color conditioning on the *current* pixel's earlier
+        # colors (reference :655-657, 666-668, 680-682)
+        self.seq = (cfg.clrchs == 3 and cfg.clr_joint_mode == 0
+                    and cfg.clrjnt0seqmd)
+        self.act = _Activation(cfg.activfun, Ch, precision)
         # trunk: (Ly-1)-1 grouped 1x1 conv+act blocks, then 1x1 to Co
-        trunk = []
-        for i in range(cfg.conv_layers - 2):
-            trunk.append(_Conv(Ch, (1, 1), grps, Ch))
-            trunk.append(_Activation(cfg.activfun, Ch))
-        trunk.append(_Conv(Co, (1, 1), grps, Ch))
-        self.trunk = trunk
+        self.n_trunk = 2 * (cfg.conv_layers - 2) + 1
+
+    def init(self, rng, name: str):
+        """Parameters of this network, module ``name`` under the root."""
+        g0 = 1 if self.dense_groups else self.grp0
+        gt = 1 if self.dense_groups else self.grps
+        p = {}
+        for conv_name, (kernel, _pad, _unit) in self.layer0.items():
+            p[conv_name] = conv_init(rng, (name, conv_name), kernel, self.c,
+                                     self.Ch, g0)
+        if self.seq:
+            p["seq_toCo"] = conv_init(rng, (name, "seq_toCo"), (1, 1), 1,
+                                      self.Ch // 3)
+            p["seq_toCg"] = conv_init(rng, (name, "seq_toCg"), (1, 1), 2,
+                                      self.Ch // 3, bias_fan_in=1)
+        act0 = self.act.init()
+        if act0 is not None:
+            p["act0"] = act0
+        for i in range(self.n_trunk):
+            path = (name, f"trunk_{i}")
+            if i == self.n_trunk - 1:
+                p[path[1]] = conv_init(rng, path, (1, 1), self.Ch, self.Co,
+                                       gt)
+            elif i % 2 == 0:
+                p[path[1]] = conv_init(rng, path, (1, 1), self.Ch, self.Ch,
+                                       gt)
+            elif self.act.init() is not None:
+                p[path[1]] = self.act.init()
+        return p
+
+    def _conv(self, p, x):
+        return conv(p, x, self.precision)
+
+    def _act(self, p, name, x):
+        return self.act(p.get(name), x)
 
     # --- layer 0 -----------------------------------------------------------
     def _quant(self, x):
         r = self.cfg.rndfactor
         return jnp.round(x * r) / r
 
-    def _layer0_submean(self, y_cond):
+    def _band_specs(self, y_cond):
+        """[(channel lo, hi), conv name] of the layer-0 convs this band
+        sums (band -1 dispatches on the conditioning channel count)."""
+        c = self.c
+        band = self.band if self.band != -1 else y_cond.shape[-1] // c - 1
+        if band not in (0, 1, 2):
+            raise ValueError(f"bad band {band}")
+        names = (("conv_00_11",), ("conv_00_01", "conv_11_01"),
+                 ("conv_00_10", "conv_11_10", "conv_01_10"))[band]
+        out = []
+        for name in names:
+            unit = self.layer0[name][2]
+            out.append(((unit * c, (unit + 1) * c), name))
+        return out
+
+    def _layer0_submean(self, p, y_cond):
         """DC-removal variant: subtract the quantized box-filter local mean
         of each conditioning band before its layer-0 conv, and return the
         (quantized) averaged mean to re-bias the predicted variable.
@@ -211,110 +220,87 @@ class Interpolator(nn.Module):
         vestigial/dead there (it calls a method that no longer exists);
         this is a working re-design of the same idea.
         """
-        c = self.c
-        n_units = y_cond.shape[-1] // c
-        band = self.band if self.band != -1 else (n_units - 1)
-        if band == 0:
-            specs = [((0, c), self.conv_00_11, self.pad_00_11)]
-        elif band == 1:
-            specs = [((0, c), self.conv_00_01, self.pad_00_01),
-                     ((c, 2 * c), self.conv_11_01, self.pad_11_01)]
-        else:
-            specs = [((0, c), self.conv_00_10, self.pad_00_10),
-                     ((c, 2 * c), self.conv_11_10, self.pad_11_10),
-                     ((2 * c, 3 * c), self.conv_01_10, self.pad_01_10)]
+        specs = self._band_specs(y_cond)
         out = None
         mean_sum = None
-        for (lo, hi), conv, pad in specs:
+        for (lo, hi), name in specs:
+            (kh, kw), pad, _unit = self.layer0[name]
             xb = y_cond[..., lo:hi]
-            kh, kw = conv.kernel
             mn = _box_mean(_pad_edge(xb, pad), kh, kw)
             mnq = self._quant(mn)
-            o = conv(_pad_edge(xb - mnq, pad))
+            o = self._conv(p[name], _pad_edge(xb - mnq, pad))
             out = o if out is None else out + o
             mean_sum = mn if mean_sum is None else mean_sum + mn
         mean = self._quant(mean_sum / len(specs))
         return out, mean
 
-    def _layer0_convs(self, y_cond):
+    def _layer0_convs(self, p, y_cond):
         """Band-geometry conv sum (pre-activation, pre-seq)."""
-        c = self.c
-        n_units = y_cond.shape[-1] // c
-        band = self.band if self.band != -1 else (n_units - 1)
-        if band == 0:
-            out = self.conv_00_11(_pad_edge(y_cond[..., 0:c], self.pad_00_11))
-        elif band == 1:
-            out = self.conv_00_01(_pad_edge(y_cond[..., 0:c], self.pad_00_01))
-            out = out + self.conv_11_01(_pad_edge(y_cond[..., c:2 * c], self.pad_11_01))
-        elif band == 2:
-            out = self.conv_00_10(_pad_edge(y_cond[..., 0:c], self.pad_00_10))
-            out = out + self.conv_11_10(_pad_edge(y_cond[..., c:2 * c], self.pad_11_10))
-            out = out + self.conv_01_10(_pad_edge(y_cond[..., 2 * c:3 * c], self.pad_01_10))
-        else:
-            raise ValueError(f"bad band {band}")
+        out = None
+        for (lo, hi), name in self._band_specs(y_cond):
+            pad = self.layer0[name][1]
+            o = self._conv(p[name], _pad_edge(y_cond[..., lo:hi], pad))
+            out = o if out is None else out + o
         return out
 
-    def _layer0(self, y_cond, y_topred=None):
-        out = self._layer0_convs(y_cond)
-        if (
-            self.cfg.clrchs == 3
-            and self.cfg.clr_joint_mode == 0
-            and self.cfg.clrjnt0seqmd
-            and y_topred is not None
-        ):
-            out = self._apply_seq(out, y_topred, upto_clr=2)
-        return self.act0(out)
+    def _layer0(self, p, y_cond, y_topred=None):
+        out = self._layer0_convs(p, y_cond)
+        if self.seq and y_topred is not None:
+            out = self._apply_seq(p, out, y_topred, upto_clr=2)
+        return self._act(p, "act0", out)
 
-    def _apply_seq(self, base, y_seq, upto_clr: int):
+    def _apply_seq(self, p, base, y_seq, upto_clr: int):
         """Sequential-color layer-0 additions (reference :655-657,
         666-668, 680-682): the *current* pixel's earlier colors feed the
         later colors' channel groups.  Group-local, so color i's trunk
         output depends only on colors < i (causal for the codec)."""
         K = base.shape[-1] // 9
         if upto_clr >= 1:
-            base = base.at[..., 3 * K:6 * K].add(self.seq_toCo(y_seq[..., 0:1]))
+            base = base.at[..., 3 * K:6 * K].add(
+                self._conv(p["seq_toCo"], y_seq[..., 0:1]))
         if upto_clr >= 2:
-            base = base.at[..., 6 * K:9 * K].add(self.seq_toCg(y_seq[..., 0:2]))
+            base = base.at[..., 6 * K:9 * K].add(
+                self._conv(p["seq_toCg"], y_seq[..., 0:2]))
         return base
 
-    def _trunk(self, h):
-        for layer in self.trunk:
-            h = layer(h)
+    def _trunk(self, p, h):
+        for i in range(self.n_trunk):
+            name = f"trunk_{i}"
+            if i % 2 == 0:
+                h = self._conv(p[name], h)
+            else:
+                h = self._act(p, name, h)
         return h
 
     # --- public API --------------------------------------------------------
-    def get_params(self, y_cond, y_topred=None):
+    def get_params(self, p, y_cond, y_topred=None):
         """NN forward: conditioning bands -> GMM parameter map [B,H,W,Co].
 
         Codec path; assumes subtract_mean is off (as the reference's
         get_params does, LLICTI_nets.py:820-825)."""
         assert not self.cfg.subtract_mean
-        return self._trunk(self._layer0(y_cond, y_topred))
+        return self._trunk(p, self._layer0(p, y_cond, y_topred))
 
-    def band_base(self, y_cond):
+    def band_base(self, p, y_cond):
         """Codec path for clrjnt0seqmd: pre-activation layer-0 sum."""
-        return self._layer0_convs(y_cond)
+        return self._layer0_convs(p, y_cond)
 
-    def params_from_base(self, base, y_seq, clr: int):
+    def params_from_base(self, p, base, y_seq, clr: int):
         """Codec path for clrjnt0seqmd: apply the seq additions causal up
         to color ``clr``, then activation + trunk.  Requires an
         elementwise activation (GDN1 couples channel groups and would
         break the per-color causality)."""
         assert self.cfg.activfun != "GDN1"
-        return self._trunk(self.act0(self._apply_seq(base, y_seq, clr)))
+        return self._trunk(p, self._act(
+            p, "act0", self._apply_seq(p, base, y_seq, clr)))
 
-    def __call__(self, y_cond, y_topred):
+    def __call__(self, p, y_cond, y_topred):
         """Training forward: self-information map [B,H,W,c]."""
         if self.cfg.subtract_mean:
-            out, mean = self._layer0_submean(y_cond)
-            params = self._trunk(self.act0(out))
+            out, mean = self._layer0_submean(p, y_cond)
+            params = self._trunk(p, self._act(p, "act0", out))
             return self.self_informations(params, y_topred - mean)
-        seq = (
-            self.cfg.clrchs == 3
-            and self.cfg.clr_joint_mode == 0
-            and self.cfg.clrjnt0seqmd
-        )
-        params = self.get_params(y_cond, y_topred if seq else None)
+        params = self.get_params(p, y_cond, y_topred if self.seq else None)
         return self.self_informations(params, y_topred)
 
     def self_informations(self, params, y):

@@ -15,13 +15,13 @@ from __future__ import annotations
 
 from typing import List
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from ..config import ModelConfig
 from ..ops.color import rgb_to_ycocg_r
 from ..ops.wavelet import lazy_dwt
 from .interpolator import Interpolator
+from .module import Module
 
 
 def model_scales(cfg: ModelConfig) -> List[int]:
@@ -33,37 +33,49 @@ def model_scales(cfg: ModelConfig) -> List[int]:
     return owners
 
 
-class LLICTIModel(nn.Module):
-    """Flax module computing per-scale self-information maps.
+class LLICTIModel(Module):
+    """Per-scale self-information maps (plain JAX, see models/module.py).
 
     Input: RGB image [B, H, W, 3] in [0, 1]; H, W must be multiples of
     2**(max(dwtlevels)+1) (the caller pads, as the reference agent does at
     agents/llicti_agent.py:105-113).
     Output: list (per scale) of [B, h_s, w_s, 9] self-info maps
     (3 bands x 3 colors), suitable for the rate loss.
+
+    ``dense_groups``: codec-path mode, grouped convs as dense
+    block-diagonal convs (see Interpolator).  ``precision``: conv/matmul
+    precision of the interpolators (None = XLA's default).
+    Parameters: ``{"params": {"models_<m>_<b>": interpolator tree}}``.
     """
 
-    cfg: ModelConfig
-    # codec-path mode: grouped convs as dense block-diagonal convs (see
-    # Interpolator.dense_groups); params must be expanded to match
-    dense_groups: bool = False
-
-    def setup(self):
-        cfg = self.cfg
-        owners = model_scales(cfg)
+    def __init__(self, cfg: ModelConfig, dense_groups: bool = False,
+                 precision=None):
+        self.cfg = cfg
+        self.dense_groups = dense_groups
+        self.precision = precision
         models = []
-        for m, scl in enumerate(owners):
-            if cfg.combine_layers1toL:
-                bands = (Interpolator(cfg=cfg, scale=scl, band=-1,
-                                      dense_groups=self.dense_groups),)
-            else:
-                bands = tuple(
-                    Interpolator(cfg=cfg, scale=scl, band=b,
-                                 dense_groups=self.dense_groups)
-                    for b in range(3)
-                )
-            models.append(bands)
+        for scl in model_scales(cfg):
+            bands = (-1,) if cfg.combine_layers1toL else (0, 1, 2)
+            models.append(tuple(
+                Interpolator(cfg, scl, b, dense_groups, precision)
+                for b in bands))
         self.models = models
+
+    def init(self, rng, x=None):
+        """Fresh parameters.  Shapes come from the config; ``x`` is
+        accepted for the ``init(rng, sample)`` call surface."""
+        params = {}
+        for m, bands in enumerate(self.models):
+            for b, mdl in enumerate(bands):
+                name = f"models_{m}_{b}"
+                params[name] = mdl.init(rng, name)
+        return {"params": params}
+
+    def _net(self, scale: int, band: int):
+        """(interpolator, its parameter subtree) serving (scale, band)."""
+        m = self.cfg.model_index[scale]
+        b = 0 if self.cfg.combine_layers1toL else band
+        return self.models[m][b], self.p[f"models_{m}_{b}"]
 
     def transform(self, x: jnp.ndarray) -> List[jnp.ndarray]:
         """Color transform + zero-mean shift + lazy DWT (training numerics).
@@ -90,16 +102,14 @@ class LLICTIModel(nn.Module):
 
         Reference: LLICTIEntropyLayer.forward :318-342.
         """
-        cfg = self.cfg
-        c = cfg.cond_channels
+        c = self.cfg.cond_channels
         out = []
         for s, y_lev in enumerate(y_list):
-            bands = self.models[cfg.model_index[s]]
             sis = []
             for b in range(3):
-                mdl = bands[0] if cfg.combine_layers1toL else bands[b]
-                si = mdl(y_lev[..., 0:c * (b + 1)], y_lev[..., c * (b + 1):c * (b + 2)])
-                sis.append(si)
+                mdl, p = self._net(s, b)
+                sis.append(mdl(p, y_lev[..., 0:c * (b + 1)],
+                               y_lev[..., c * (b + 1):c * (b + 2)]))
             out.append(jnp.concatenate(sis, axis=-1))
         return out
 
@@ -107,37 +117,28 @@ class LLICTIModel(nn.Module):
         return self.entropy_forward(self.transform(x))
 
     # --- codec-path entry points (used via .apply with method=...) ---------
-    def _band_model(self, scale: int, band: int):
-        cfg = self.cfg
-        bands = self.models[cfg.model_index[scale]]
-        return bands[0] if cfg.combine_layers1toL else bands[band]
-
     def band_params(self, y_cond: jnp.ndarray, scale: int, band: int) -> jnp.ndarray:
         """GMM parameter map for one (scale, band) from conditioning bands."""
-        return self._band_model(scale, band).get_params(y_cond)
+        mdl, p = self._net(scale, band)
+        return mdl.get_params(p, y_cond)
 
     def band_base(self, y_cond: jnp.ndarray, scale: int, band: int) -> jnp.ndarray:
         """Pre-activation layer-0 map (clrjnt0seqmd codec path)."""
-        return self._band_model(scale, band).band_base(y_cond)
+        mdl, p = self._net(scale, band)
+        return mdl.band_base(p, y_cond)
 
     def band_params_seq(self, base: jnp.ndarray, y_seq: jnp.ndarray,
                         scale: int, band: int, clr: int) -> jnp.ndarray:
         """Per-color GMM params from a layer-0 base (clrjnt0seqmd)."""
-        return self._band_model(scale, band).params_from_base(base, y_seq, clr)
+        mdl, p = self._net(scale, band)
+        return mdl.params_from_base(p, base, y_seq, clr)
 
     def aux_loss(self) -> jnp.ndarray:
         """Aggregated quantile aux loss over factorized-prior bottleneck
         submodules (reference LLICTIBaseNet.aux_loss, LLICTI_nets.py:31-38).
 
         Vestigial like the reference's: the live interpolator stack
-        contains no EntropyBottleneck, so the sum is empty (0.0); configs
-        that add ops.factorized.FactorizedPrior modules contribute their
-        .loss() here.
+        contains no EntropyBottleneck (ops.factorized.FactorizedPrior), so
+        the sum is empty (0.0).
         """
-        total = jnp.zeros(())
-        for bands in self.models:
-            for mdl in bands:
-                prior = getattr(mdl, "factorized_prior", None)
-                if prior is not None:
-                    total = total + prior.loss()
-        return total
+        return jnp.zeros(())

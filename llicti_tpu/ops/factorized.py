@@ -15,65 +15,60 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ..models.module import Module, path_key
 from .bounds import lower_bound
 
 HALF = 0.5 / 255.0
 LIKELIHOOD_BOUND = 1e-9
 
 
-class FactorizedPrior(nn.Module):
-    channels: int
-    filters: Tuple[int, ...] = (3, 3, 3, 3)
-    init_scale: float = 10.0
-    tail_mass: float = 1e-9
+class FactorizedPrior(Module):
+    def __init__(self, channels: int, filters: Tuple[int, ...] = (3, 3, 3, 3),
+                 init_scale: float = 10.0, tail_mass: float = 1e-9):
+        self.channels = channels
+        self.filters = tuple(filters)
+        self.init_scale = init_scale
+        self.tail_mass = tail_mass
 
-    def setup(self):
-        # learned per-channel (lower-tail, median, upper-tail) quantile
-        # positions, pulled toward the tail_mass CDF levels by loss() —
-        # the EntropyBottleneck aux/quantile machinery the reference
-        # aggregates in aux_loss (LLICTI_nets.py:31-38)
-        self.quantiles = self.param(
-            "quantiles",
-            lambda rng, sh=(self.channels, 1, 3): jnp.tile(
-                jnp.array([-self.init_scale, 0.0, self.init_scale]),
-                (sh[0], 1, 1)))
-        self._setup_density()
-
-    def _setup_density(self):
+    def init(self, rng, x=None):
+        """Parameters: learned per-channel (lower-tail, median, upper-tail)
+        quantile positions, pulled toward the tail_mass CDF levels by
+        loss() — the EntropyBottleneck aux/quantile machinery the
+        reference aggregates in aux_loss (LLICTI_nets.py:31-38) — and the
+        monotone MLP's matrices H{k}, biases b{k} and factors a{k}."""
         C = self.channels
         dims = (1,) + self.filters + (1,)
         scale = self.init_scale ** (1 / (len(self.filters) + 1))
-        matrices, biases, factors = [], [], []
+        p = {"quantiles": jnp.tile(
+            jnp.array([-self.init_scale, 0.0, self.init_scale]), (C, 1, 1))}
         for k in range(len(dims) - 1):
             init_m = jnp.log(jnp.expm1(1.0 / scale / dims[k + 1]))
-            matrices.append(self.param(
-                f"H{k}", lambda rng, v=init_m, sh=(C, dims[k + 1], dims[k]):
-                jnp.full(sh, v)))
-            biases.append(self.param(
-                f"b{k}", lambda rng, sh=(C, dims[k + 1], 1):
-                jax.random.uniform(rng, sh, minval=-0.5, maxval=0.5)))
+            p[f"H{k}"] = jnp.full((C, dims[k + 1], dims[k]), init_m)
+            # creation index of b{k}: after quantiles and H0/b0/a0/...
+            p[f"b{k}"] = jax.random.uniform(
+                path_key(rng, 3 * k + 3), (C, dims[k + 1], 1),
+                minval=-0.5, maxval=0.5)
             if k < len(dims) - 2:
-                factors.append(self.param(
-                    f"a{k}", lambda rng, sh=(C, dims[k + 1], 1):
-                    jnp.zeros(sh)))
-        self.matrices = matrices
-        self.biases = biases
-        self.factors = factors
+                p[f"a{k}"] = jnp.zeros((C, dims[k + 1], 1))
+        return {"params": p}
+
+    @property
+    def quantiles(self):
+        return self.p["quantiles"]
 
     def _logits_cumulative(self, x, stop_density: bool = False):
         """x: [C, 1, N] -> logits [C, 1, N]."""
         sg = jax.lax.stop_gradient if stop_density else (lambda a: a)
         v = x
-        K = len(self.matrices)
+        K = len(self.filters) + 1
         for k in range(K):
-            H = jax.nn.softplus(sg(self.matrices[k]))
-            v = jnp.einsum("cij,cjn->cin", H, v) + sg(self.biases[k])
+            H = jax.nn.softplus(sg(self.p[f"H{k}"]))
+            v = jnp.einsum("cij,cjn->cin", H, v) + sg(self.p[f"b{k}"])
             if k < K - 1:
-                v = v + jnp.tanh(sg(self.factors[k])) * jnp.tanh(v)
+                v = v + jnp.tanh(sg(self.p[f"a{k}"])) * jnp.tanh(v)
         return v
 
     def likelihood(self, x):

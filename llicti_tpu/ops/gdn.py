@@ -1,4 +1,4 @@
-"""GDN1 activation (l1 generalized divisive normalization) as a Flax module.
+"""GDN1 activation (l1 generalized divisive normalization).
 
 y_c = x_c / (beta_c + sum_k gamma_ck * |x_k|)
 
@@ -10,9 +10,9 @@ activation option :690-691.
 """
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ..models.module import Module
 from .bounds import lower_bound
 
 
@@ -28,23 +28,26 @@ class _NonNegParam:
         return lower_bound(param, self.bound) ** 2 - self.pedestal
 
 
-class GDN1(nn.Module):
+class GDN1(Module):
     """l1-GDN over the channel (last) axis of an NHWC tensor."""
 
-    channels: int
-    beta_min: float = 1e-6
-    gamma_init: float = 0.1
+    def __init__(self, channels: int, beta_min: float = 1e-6,
+                 gamma_init: float = 0.1, precision=None):
+        self.channels = channels
+        self.beta_rep = _NonNegParam(minimum=beta_min)
+        self.gamma_rep = _NonNegParam()
+        self.gamma_init = gamma_init
+        self.precision = precision
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+    def init(self, rng=None, x=None):
         C = self.channels
-        beta_rep = _NonNegParam(minimum=self.beta_min)
-        gamma_rep = _NonNegParam()
-        beta_p = self.param("beta", lambda rng: beta_rep.init(jnp.ones((C,))))
-        gamma_p = self.param(
-            "gamma", lambda rng: gamma_rep.init(self.gamma_init * jnp.eye(C))
-        )
-        beta = beta_rep(beta_p)
-        gamma = gamma_rep(gamma_p)
-        norm = jnp.abs(x) @ gamma.T + beta
+        return {"params": {
+            "beta": self.beta_rep.init(jnp.ones((C,))),
+            "gamma": self.gamma_rep.init(self.gamma_init * jnp.eye(C))}}
+
+    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+        beta = self.beta_rep(self.p["beta"])
+        gamma = self.gamma_rep(self.p["gamma"])
+        norm = jnp.matmul(jnp.abs(x), gamma.T,
+                          precision=self.precision) + beta
         return x / norm

@@ -1,13 +1,13 @@
 """Spatially-sharded multi-chip codec: per-shard bitstreams + GSPMD halos.
 
-TPU-native scale-out of the codec path (SURVEY.md §2.3.3-4): the image's
+Scale-out of the codec path (SURVEY.md §2.3.3-4): the image's
 rows are sharded over a 1-D ``sp`` mesh axis; each device entropy-codes
 its own tile with its own chained rANS stream, while the interpolator
 convs and CDF tables run under GSPMD — XLA inserts the halo exchanges
-(collective-permute over ICI) for the small layer-0 receptive fields
+(collective-permute) for the small layer-0 receptive fields
 automatically.  The reference has no distributed codec at all
 (single-GPU, graphs/models/LLICTI_nets.py:344-509); this is the
-spatial/context-parallel analog built for a TPU mesh.
+spatial/context-parallel analog built for a device mesh.
 
 Program structure: ONE fused jitted program per SCALE runs (raw-band
 init or interleave) -> 3x(conv -> 3x(CDF table -> per-shard rANS decode
@@ -48,7 +48,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..codec import dense_group_params, gmm_slice_params, sym_channel
+from ..codec import (CONV_PRECISION, codec_jit, dense_group_params,
+                     gmm_slice_params, sym_channel)
 from ..coder import rans_device as rd
 from ..config import ModelConfig
 from ..models.llicti import LLICTIModel
@@ -122,9 +123,11 @@ class ShardedCodec:
         self.last_slice_bits_batch: Optional[List] = None
         self.last_ideal_bits_batch: Optional[List] = None
         # dense block-diagonal execution of grouped convs (same math,
-        # full MXU contractions — llicti_tpu/codec.py:dense_group_params)
+        # one contraction — llicti_tpu/codec.py:dense_group_params), at
+        # the single-chip codec's explicit conv precision
         params = dense_group_params(params, cfg)
-        self.model = LLICTIModel(cfg=cfg, dense_groups=True)
+        self.model = LLICTIModel(cfg=cfg, dense_groups=True,
+                                 precision=CONV_PRECISION)
         mesh_ = self.mesh
         G, N = self.G, self.N
         c = cfg.cond_channels
@@ -179,9 +182,8 @@ class ShardedCodec:
                 minv, maxv = ranges[clr]
                 stdevs, means, weights = gmm_slice_params(
                     cfg, pmap, y_lev, b, clr)
-                # pts3[clr] is a runtime operand: a constant-folded grid
-                # is pathologically slow to stream per block (see
-                # llicti_tpu/codec.py:_cdf_cum)
+                # pts3[clr] is a runtime operand (one cached grid per
+                # range, as in llicti_tpu/codec.py:_cdf_cum)
                 cum = rd.cdf_float_to_cum_int32(gmm_cdf_table(
                     pts3[clr], stdevs, means, weights, logistic=logistic))
                 cum = jax.lax.with_sharding_constraint(cum, sh_img)
@@ -242,7 +244,7 @@ class ShardedCodec:
                 sf.append(fr_arr)
             return y_lev, states, offs
 
-        @partial(jax.jit, static_argnums=(9, 10),
+        @partial(codec_jit, static_argnums=(9, 10),
                  in_shardings=(repl, repl, sh_img, sh_img, sh_row, sh_row,
                                sh_row, repl, repl))
         def scale_fn(params_, raw_u8, y_prev, y_direct, words, states, offs,
@@ -302,7 +304,7 @@ class ShardedCodec:
         # Chains the scale's 9 slices (reverse decode order) through each
         # shard's lane states in ONE dispatch; integer-only, so grouping
         # has no float-determinism hazard.
-        @partial(jax.jit, donate_argnums=(4,))
+        @partial(codec_jit, donate_argnums=(4,))
         def encode_group_fn(st9, fr9, states, cursors, bufs):
             def body(st9, fr9, states_blk, cur_blk, buf_blk):
                 states = states_blk[0]
@@ -324,7 +326,7 @@ class ShardedCodec:
                 check_vma=False)(st9, fr9, states, cursors, bufs)
 
         # ---- front end (encode) ------------------------------------------
-        @partial(jax.jit, static_argnums=(1,), in_shardings=(sh_img,))
+        @partial(codec_jit, static_argnums=(1,), in_shardings=(sh_img,))
         def front_fn(rgb_u8, levels):
             rgb_int = rgb_u8.astype(jnp.int32)
             ycocg = rgb_int_to_ycocg_r_int(rgb_int)
@@ -344,11 +346,11 @@ class ShardedCodec:
                       for y in y_list]
             return tuple(y_list), mm, x00_raw
 
-        @partial(jax.jit, static_argnums=(1,), out_shardings=sh_row)
+        @partial(codec_jit, static_argnums=(1,), out_shardings=sh_row)
         def pad_words_fn(w, cap):
             return jnp.zeros((G, cap), w.dtype).at[:, : w.shape[1]].set(w)
 
-        @partial(jax.jit, in_shardings=(sh_img, sh_img))
+        @partial(codec_jit, in_shardings=(sh_img, sh_img))
         def ycocg_err_fn(y_lev, xorg_u8):
             """Pre-color-transform decode check (reference
             LLICTI_nets.py:168-171, decompres(..., xorg)): max abs error

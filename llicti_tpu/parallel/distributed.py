@@ -1,18 +1,15 @@
 """Multi-host initialization helpers.
 
-On a TPU pod slice, call :func:`initialize` once per host before building
-meshes; JAX wires the ICI/DCN topology and `jax.devices()` becomes the
-global device list.  Single-host (or already-initialized) environments
-are no-ops, so the same entry point works everywhere.
+For a multi-process run, call :func:`initialize` once per process,
+before building meshes, with the coordinator's address, the process
+count and this process's id; `jax.devices()` then becomes the global
+device list.  Without a coordinator it is a no-op (single process).
 """
 from __future__ import annotations
 
-import logging
 from typing import Optional
 
 import jax
-
-log = logging.getLogger(__name__)
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -20,25 +17,22 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed when running multi-process.
 
-    Returns True when distributed mode is active.  With no arguments, TPU
-    pod environments auto-discover the topology; elsewhere this degrades
-    to single-process.
+    Returns True when distributed mode is active.  With no coordinator
+    this is a single-process no-op; with one, any failure to join the
+    job propagates (a requested multi-process run never silently becomes
+    a single-process one).  Re-entry after a successful initialize is a
+    no-op.
     """
+    if coordinator_address is None:
+        return False
     # Do NOT probe jax.process_count() first: it initializes the local
     # backend, after which distributed.initialize refuses to run.
-    try:
+    if not jax.distributed.is_initialized():
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
         )
-    except RuntimeError as e:
-        # already initialized (idempotent re-entry) — fall through to the
-        # process_count check
-        log.debug("jax.distributed.initialize: %s", e)
-    except Exception as e:  # single host / unsupported backend
-        log.debug("jax.distributed not initialized (%s); single process", e)
-        return False
     return jax.process_count() > 1
 
 

@@ -1,10 +1,10 @@
 """Device-mesh helpers for SPMD training/inference.
 
 The reference has no distributed support (SURVEY.md §2.3); here
-parallelism is first-class and idiomatic TPU:
+parallelism is first-class, expressed as GSPMD shardings:
 
 * ``data`` axis: data-parallel training — batch sharded, params
-  replicated; XLA inserts the psum gradient reduction over ICI.
+  replicated; XLA inserts the psum gradient reduction.
 * ``spatial`` axis: large-image spatial sharding — H sharded; XLA
   inserts halo exchanges (collective-permute) for the small layer-0
   convs automatically under GSPMD.

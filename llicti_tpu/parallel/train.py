@@ -3,8 +3,8 @@
 The train step itself is the single-chip step from training/steps.py; we
 only annotate shardings — batch split over the ``data`` (and optionally
 ``spatial``) mesh axes, params/opt-state replicated — and let XLA insert
-the gradient psum over ICI and conv halo exchanges.  This is the
-TPU-native analog of DDP + context parallelism (SURVEY.md §2.3.2-3).
+the gradient psum and conv halo exchanges.  This is the GSPMD analog of
+DDP + context parallelism (SURVEY.md §2.3.2-3).
 """
 from __future__ import annotations
 

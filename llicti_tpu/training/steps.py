@@ -4,7 +4,7 @@ Semantics match the reference agent (agents/llicti_agent.py:48-83):
 per-microbatch grads of (loss / grad_acc_iters) are accumulated, gradient
 values clipped at 5.0, then one Adam step.  Accumulation is a lax.scan
 over a leading microbatch axis — one compiled program per optimizer step,
-no host round-trips (TPU-native grad-acc).
+no host round-trips.
 
 The learning rate is an optax injected hyperparam so the plateau
 scheduler can update it without recompilation.
@@ -52,8 +52,7 @@ def get_learning_rate(state: TrainState) -> float:
 
 def init_state(model, cfg, rng, sample_batch, learning_rate: float,
                clip_value: float = 5.0) -> Tuple[TrainState, optax.GradientTransformation]:
-    # jit the init: eager flax init is hundreds of tiny device ops (each a
-    # compile+RPC on remote TPU backends)
+    # jit the init: eager init is hundreds of tiny device dispatches
     params = jax.jit(model.init)(rng, sample_batch)
     tx = make_optimizer(learning_rate, clip_value)
     opt_state = tx.init(params)

@@ -283,19 +283,17 @@ class Trainer:
         """Real codec round-trip over the test set (reference
         llicti_agent.py:122-164).  With a multi-device mesh, uses the
         spatially-sharded codec (per-shard rANS streams, GSPMD halos)."""
-        lanes = 512 if jax.default_backend() == "tpu" else 64
         from ..parallel.codec_sp import ShardedCodec, make_sp_mesh
 
         if (self.mesh is not None and self.mesh.devices.size > 1
                 and ShardedCodec.supports(self.config.model)):
             sp = make_sp_mesh(devices=self.mesh.devices.flatten())
             codec = ShardedCodec(self.config.model, self.state.params,
-                                 mesh=sp, num_lanes=max(32, lanes // sp.devices.size))
+                                 mesh=sp)
         else:
             # configs outside the sharded codec's coded subset fall back
             # to the single-chip codec (device 0 of the mesh)
-            codec = Codec(self.config.model, self.state.params,
-                          num_lanes=lanes)
+            codec = Codec(self.config.model, self.state.params)
         mult = 2 ** (max(self.config.model.dwtlevels) + 1)
         results = []
         for idx, img in enumerate(self.test_loader.iter_uint8()):

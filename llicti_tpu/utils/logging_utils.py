@@ -58,7 +58,7 @@ def setup_logging(log_dir: str) -> None:
     main.addHandler(ch)
     main.addHandler(fh)
     main.addHandler(eh)
-    # orbax/absl INFO chatter would drown the rate tables
+    # absl INFO chatter would drown the rate tables
     logging.getLogger("absl").setLevel(logging.WARNING)
     try:
         import absl.logging as absl_logging

@@ -3,7 +3,7 @@
 The reference ships an SMTP Mailer that is imported but never invoked
 (agents/base.py:7; SURVEY.md §2 row 14).  We provide the same capability
 with a pluggable transport: SMTP when configured, else a JSONL event log
-under the experiment dir (useful in air-gapped TPU pods).
+under the experiment dir (useful on air-gapped machines).
 """
 from __future__ import annotations
 

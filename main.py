@@ -15,19 +15,22 @@ import os
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description="LLICTI-TPU")
+    ap = argparse.ArgumentParser(description="LLICTI")
     ap.add_argument("config", help="JSON config path")
     ap.add_argument("--mode", default=None,
                     help="override mode (train/eval_model/...)")
     ap.add_argument("--mesh", action="store_true",
                     help="use all local devices as a data mesh")
     ap.add_argument("--platform", default=None,
-                    help="force a jax platform (e.g. cpu, tpu)")
+                    help="force a jax platform (e.g. cpu, gpu)")
     args = ap.parse_args()
 
-    if args.platform:
-        import jax
+    import jax
 
+    from llicti_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
     from llicti_tpu.config import config_from_dict

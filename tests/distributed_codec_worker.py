@@ -27,11 +27,9 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from llicti_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from llicti_tpu.parallel.distributed import initialize
 

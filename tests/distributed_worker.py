@@ -4,7 +4,7 @@ Launched by tests/test_distributed_2proc.py (and tools/scaling_bench.py):
 each process owns xla_force_host_platform_device_count fake CPU devices;
 jax.distributed glues them into one global mesh, and the DP train step
 runs under GSPMD with the gradient psum crossing the process boundary —
-the same program structure as a multi-host TPU pod over DCN.
+the same program structure as a multi-host job.
 
 argv: rank nprocs coordinator outdir [steps]
 """
@@ -26,11 +26,9 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from llicti_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from llicti_tpu.parallel.distributed import initialize, local_batch_slice
 

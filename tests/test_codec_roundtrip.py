@@ -86,20 +86,6 @@ def test_roundtrip_odd_sizes(h, w, backend):
     np.testing.assert_array_equal(out[0], img)
 
 
-def test_roundtrip_pallas_cdf_kernel():
-    """Codec with the fused Pallas CDF kernel (interpret mode on CPU):
-    lossless as long as encode and decode share the kernel."""
-    cfg = small_cfg()
-    model = LLICTIModel(cfg=cfg)
-    x = jnp.zeros((1, 16, 16, 3))
-    params = model.init(jax.random.PRNGKey(0), x)
-    codec = Codec(cfg, params, num_lanes=32, use_pallas_cdf=True)
-    img = natural_image(24, 28, seed=77)
-    streams = codec.compress(img)
-    out = codec.decompress(streams)
-    np.testing.assert_array_equal(out[0], img)
-
-
 def test_backends_agree_on_rate():
     """Device-rANS and host-arithcoder rates should be within ~2%
     (same CDF quantization contract, different coders + lane flush)."""
